@@ -1,6 +1,6 @@
-// Native host runtime for ms-slam-tpu.
+// Native host runtime for ms-slam.
 //
-// TPU-native equivalent of the reference's C++ data path: the reference's
+// Host-side equivalent of the reference's C++ data path: the reference's
 // CLI drivers do cv::imread + cv::remap rectification inline on the
 // tracking thread (/root/reference/Examples/Stereo/stereo_kitti.cc:118-147,
 // src/Settings.cc:485 precomputed maps). Here that work runs in a native
@@ -163,9 +163,13 @@ struct Pipeline {
       if (idx >= n_frames || stop.load()) return;
       const int slot = idx % depth;
       {
+        // the slot is idx's once frame idx - depth has been consumed; a
+        // bare "slot is free" test would let a later frame that maps to
+        // the same slot claim it first and stall the in-order consumer
         std::unique_lock<std::mutex> lk(mu);
         cv_free.wait(lk, [&] {
-          return stop.load() || ready[slot].load() == -1;
+          return stop.load() ||
+                 (next_consume > idx - depth && ready[slot].load() == -1);
         });
         if (stop.load()) return;
         ready[slot].store(-2);  // claimed

@@ -35,7 +35,10 @@ def main():
     ap.add_argument("--max-dt", type=float, default=0.02)
     args = ap.parse_args()
 
-    from ms_slam_tpu.utils.evaluate import associate, ate_rmse
+    from ms_slam.utils.runtime import setup_compile_cache
+    setup_compile_cache()
+
+    from ms_slam.utils.evaluate import associate, ate_rmse
 
     t_gt, gt = read_tum(args.gt)
     t_est, est = read_tum(args.est)

@@ -18,10 +18,13 @@ def main():
     ap.add_argument("--max-frames", type=int, default=None)
     args = ap.parse_args()
 
-    from ms_slam_tpu.pipeline.system import System
-    from ms_slam_tpu.utils import native
-    from ms_slam_tpu.utils.config import Settings
-    from ms_slam_tpu.utils.datasets import EurocStereo, with_lookahead
+    from ms_slam.utils.runtime import setup_compile_cache
+    setup_compile_cache()
+
+    from ms_slam.pipeline.system import System
+    from ms_slam.utils import native
+    from ms_slam.utils.config import Settings
+    from ms_slam.utils.datasets import EurocStereo, with_lookahead
 
     st = Settings(args.settings)
     cfg = st.system_config()

@@ -45,10 +45,13 @@ def main():
     ap.add_argument("--max-frames", type=int, default=None)
     args = ap.parse_args()
 
+    from ms_slam.utils.runtime import setup_compile_cache
+    setup_compile_cache()
+
     import cv2
 
-    from ms_slam_tpu.pipeline.system import System
-    from ms_slam_tpu.utils.config import Settings
+    from ms_slam.pipeline.system import System
+    from ms_slam.utils.config import Settings
 
     st = Settings(args.settings)
     cfg = st.system_config()

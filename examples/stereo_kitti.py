@@ -34,10 +34,13 @@ def main():
     ap.add_argument("--max-kf", type=int, default=512)
     args = ap.parse_args()
 
-    from ms_slam_tpu.pipeline.system import System
-    from ms_slam_tpu.utils import native
-    from ms_slam_tpu.utils.config import Settings
-    from ms_slam_tpu.utils.datasets import KittiOdometry, with_lookahead
+    from ms_slam.utils.runtime import setup_compile_cache
+    setup_compile_cache()
+
+    from ms_slam.pipeline.system import System
+    from ms_slam.utils import native
+    from ms_slam.utils.config import Settings
+    from ms_slam.utils.datasets import KittiOdometry, with_lookahead
 
     st = Settings(args.settings)
     cfg = st.system_config(max_kf=args.max_kf)

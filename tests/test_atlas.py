@@ -4,11 +4,11 @@ LoopClosing::MergeLocal)."""
 import numpy as np
 import pytest
 
-from ms_slam_tpu.models.map_state import MapConfig
-from ms_slam_tpu.ops.orb import OrbConfig
-from ms_slam_tpu.pipeline.frontend import Calib
-from ms_slam_tpu.pipeline.system import System, SystemConfig
-from ms_slam_tpu.utils import synth
+from ms_slam.models.map_state import MapConfig
+from ms_slam.ops.orb import OrbConfig
+from ms_slam.pipeline.frontend import Calib
+from ms_slam.pipeline.system import System, SystemConfig
+from ms_slam.utils import synth
 
 H, W, FX, BL = 240, 320, 260.0, 0.15
 K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
@@ -39,8 +39,8 @@ def test_new_map_and_merge(rng):
     # before the essential graph / global BA run
     def seam_rmse(cur):
         import jax.numpy as jnp
-        from ms_slam_tpu.models import map_state as M
-        from ms_slam_tpu.ops import cameras
+        from ms_slam.models import map_state as M
+        from ms_slam.ops import cameras
         ms = slam.ms
         covis = np.array(M.covisibility_counts(ms, jnp.asarray(cur)))
         win = [cur] + [int(i) for i in np.argsort(-covis)

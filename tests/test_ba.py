@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ms_slam_tpu.ops import ba, cameras, lie
+from ms_slam.ops import ba, cameras, lie
 
 PIN = cameras.pad_params([400.0, 400.0, 320.0, 240.0])
 BF = 40.0
@@ -85,3 +85,21 @@ class TestBA:
             jnp.asarray(f_ur), jnp.ones(F), jnp.ones(F, bool), n_iters=3)
         np.testing.assert_allclose(res.kf_R, Rs, atol=1e-12)
         np.testing.assert_allclose(res.mp_pos, P, atol=1e-12)
+
+
+def test_duplicate_factor_keeps_lowest_index():
+    """Camera-blocked solve: of two factors for the same (point, camera)
+    pair, the LOWER factor index survives and the other is flagged as an
+    outlier, on every backend (scatter-min, not a scatter-set whose winner
+    is implementation-defined)."""
+    from ms_slam.utils.parity import ba_window
+    args = list(ba_window(n_cams=3, n_feat=32, n_pts=40, seed=3))
+    f_pt, f_uv, f_ur, f_valid = args[8], args[9], args[10], args[12]
+    lo, hi = 32 + 2, 32 + 5             # two slots of camera 1
+    f_pt[hi], f_uv[hi], f_ur[hi] = f_pt[lo], f_uv[lo] + 0.3, f_ur[lo] + 0.3
+    assert f_valid[lo] and f_valid[hi]
+    res = ba.ba_solve(cameras.PINHOLE, *[jnp.asarray(a) for a in args],
+                      n_iters=3, cam_blocked=True)
+    inl = np.asarray(res.f_inlier)
+    assert inl[lo] and not inl[hi]
+    assert inl[f_valid].sum() >= f_valid.sum() - 3

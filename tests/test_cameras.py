@@ -2,7 +2,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ms_slam_tpu.ops import cameras
+from ms_slam.ops import cameras
 
 
 PIN = jnp.asarray([718.856, 718.856, 607.1928, 185.2157, 0, 0, 0, 0])  # KITTI-ish
@@ -55,7 +55,7 @@ class TestKB8:
 
 
 def test_triangulation(rng):
-    from ms_slam_tpu.ops import lie, triangulate
+    from ms_slam.ops import lie, triangulate
     X = rand_points(rng, 32) + jnp.asarray([0, 0, 4.0])
     # camera 1 at origin, camera 2 translated
     xi = jnp.asarray([0.5, 0.02, 0.01, 0.01, -0.03, 0.02])

@@ -1,4 +1,6 @@
-from ms_slam_tpu.utils.config import Settings
+import pytest
+
+from ms_slam.utils.config import Settings
 
 
 def test_parse_kitti_yaml():
@@ -59,3 +61,69 @@ def test_parse_all_shipped_configs():
         cfg = Settings(path).system_config()
         assert cfg.calib.width > 0, path
         assert cfg.sparsify, path
+
+
+CONFIGS = ["configs/4season.yaml", "configs/EuRoC-Inertial.yaml",
+           "configs/EuRoC.yaml", "configs/KITTI00-02.yaml",
+           "configs/KITTI03.yaml", "configs/KITTI04-12.yaml",
+           "configs/TUM-VI-Fisheye.yaml"]
+
+
+def _yaml_reference_flat(path):
+    """Flattened keys as PyYAML reads the file (OpenCV header and matrix
+    tag stripped, as the reader used to do)."""
+    import yaml
+    text = open(path).read()
+    if text.startswith("%YAML"):
+        text = text.split("\n", 1)[1]
+    st = Settings.__new__(Settings)
+    st.flat = {}
+    st._flatten("", yaml.safe_load(text.replace("!!opencv-matrix", "")) or {})
+    return st.flat
+
+
+def test_shipped_config_list_is_complete():
+    import glob
+    assert sorted(glob.glob("configs/*.yaml")) == CONFIGS
+
+
+@pytest.mark.parametrize("path", CONFIGS)
+def test_reader_matches_pyyaml(path):
+    ref = _yaml_reference_flat(path)
+    got = Settings(path).flat
+    assert got.keys() == ref.keys()
+    for k, v in ref.items():
+        assert got[k] == v and type(got[k]) is type(v), (k, got[k], v)
+
+
+def test_config_imports_without_pyyaml(monkeypatch):
+    import importlib
+    import sys
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    monkeypatch.delitem(sys.modules, "ms_slam.utils.config")
+    config = importlib.import_module("ms_slam.utils.config")
+    cfg = config.Settings("configs/KITTI00-02.yaml").system_config()
+    assert cfg.orb.n_features == 2048 and cfg.calib.width == 1241
+
+
+def test_reader_subset_edge_cases():
+    from ms_slam.utils.config import parse_opencv_yaml
+    text = """%YAML:1.0
+---
+a.b: "x # not a comment"   # comment
+n: -3
+f: 1.5e-3
+empty:
+m: !!opencv-matrix
+  rows: 2
+  cols: 1
+  dt: d
+  data: [ 1.0,
+          2 ]
+after: 'q'
+"""
+    d = parse_opencv_yaml(text)
+    assert d == {"a.b": "x # not a comment", "n": -3, "f": 1.5e-3,
+                 "empty": None,
+                 "m": {"rows": 2, "cols": 1, "dt": "d", "data": [1.0, 2]},
+                 "after": "q"}

@@ -1,21 +1,23 @@
-"""Distributed BA on the 8-device virtual CPU mesh must match the
-single-device solver."""
+"""Distributed BA on virtual CPU meshes must match the single-device
+solver."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
-from ms_slam_tpu.ops import ba, cameras
-from ms_slam_tpu.parallel import dist_ba
+from ms_slam.ops import ba, cameras
+from ms_slam.parallel import dist_ba
 
 from test_ba import make_bundle, PIN, BF
 
 
-def test_dist_matches_single(rng):
-    assert len(jax.devices()) >= 8
+@pytest.mark.parametrize("n_dev", [4, 8])
+def test_dist_matches_single(rng, n_dev):
+    assert len(jax.devices()) >= n_dev
     Rs, ts, P, f_cam, f_pt, f_uv, f_ur, F = make_bundle(rng, n_cams=5,
                                                         n_pts=120)
-    # pad factor table to a multiple of 8 for even sharding
-    pad = (-F) % 8
+    # pad factor table to a multiple of n_dev for even sharding
+    pad = (-F) % n_dev
     f_cam = np.pad(f_cam, (0, pad))
     f_pt = np.pad(f_pt, (0, pad))
     f_uv = np.pad(f_uv, ((0, pad), (0, 0)))
@@ -37,7 +39,7 @@ def test_dist_matches_single(rng):
     fargs = (jnp.asarray(f_cam), jnp.asarray(f_pt), jnp.asarray(f_uv),
              jnp.asarray(f_ur), jnp.asarray(sigma2), jnp.asarray(f_valid))
 
-    mesh = dist_ba.make_mesh(8)
+    mesh = dist_ba.make_mesh(n_dev)
     R_d, t_d, P_d, _ = dist_ba.dist_ba_solve(
         mesh, cameras.PINHOLE, PIN, BF, *args, *fargs, n_iters=6)
 
@@ -60,7 +62,7 @@ def test_dist_matches_single(rng):
 
 def _total_chi2(ms, calib, orb_cfg):
     """Total weighted reprojection chi2 over all valid observations."""
-    from ms_slam_tpu.pipeline.mapping_ops import _scale2
+    from ms_slam.pipeline.mapping_ops import _scale2
 
     K, N = ms.obs_mp.shape
     obs = np.asarray(ms.obs_mp)
@@ -90,9 +92,9 @@ def test_pipeline_dist_global_ba_solves():
     iterations in f32 are sensitive to psum reduction order in the
     weakly-determined gauge subspace; f64 exactness across meshes is
     covered by test_dist_matches_single.)"""
-    from ms_slam_tpu.models import map_state as M
-    from ms_slam_tpu.ops.orb import OrbConfig as _OC
-    from ms_slam_tpu.pipeline.frontend import Calib
+    from ms_slam.models import map_state as M
+    from ms_slam.ops.orb import OrbConfig as _OC
+    from ms_slam.pipeline.frontend import Calib
 
     rng = np.random.default_rng(11)
     # consistent bundle in a MapState: 4 cams each observing 16 points at
@@ -140,3 +142,21 @@ def test_pipeline_dist_global_ba_solves():
     assert c1 < 0.05 * c0, (c1, c0)
     # and to the same quality
     assert abs(c8 - c1) < 0.02 * c0 + 1e-6, (c8, c1, c0)
+
+
+def test_dist_ba_devices_beyond_mesh_raises():
+    """Asking for more BA devices than exist is an error at construction,
+    not a silent fall-back to the single-device solve."""
+    from ms_slam.models.map_state import MapConfig
+    from ms_slam.ops.orb import OrbConfig
+    from ms_slam.pipeline.frontend import Calib
+    from ms_slam.pipeline.system import System, SystemConfig
+
+    calib = Calib(model=cameras.PINHOLE, params=(100.0, 100.0, 50.0, 50.0),
+                  bf=15.0, width=100, height=100, th_depth=6.0, fps=10.0)
+    cfg = SystemConfig(
+        calib=calib, orb=OrbConfig(n_features=128, n_levels=4),
+        map=MapConfig(max_kf=8, max_mp=256, n_feat=128, local_mp_cap=128),
+        loop_closing=True, dist_ba_devices=len(jax.devices()) + 1)
+    with pytest.raises(ValueError, match="dist_ba_devices"):
+        System(cfg)

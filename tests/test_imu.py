@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ms_slam_tpu.ops import imu, lie
+from ms_slam.ops import imu, lie
 
 G = np.array([0.0, 0.0, -imu.GRAVITY])
 

@@ -3,12 +3,12 @@ and tracking with IMU prediction survives the sequence."""
 import numpy as np
 import pytest
 
-from ms_slam_tpu.models.map_state import MapConfig
-from ms_slam_tpu.ops.orb import OrbConfig
-from ms_slam_tpu.pipeline.frontend import Calib
-from ms_slam_tpu.pipeline.system import System, SystemConfig
-from ms_slam_tpu.utils import synth
-from ms_slam_tpu.utils.evaluate import ate_rmse
+from ms_slam.models.map_state import MapConfig
+from ms_slam.ops.orb import OrbConfig
+from ms_slam.pipeline.frontend import Calib
+from ms_slam.pipeline.system import System, SystemConfig
+from ms_slam.utils import synth
+from ms_slam.utils.evaluate import ate_rmse
 
 H, W, FX, BL = 240, 320, 260.0, 0.15
 K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
@@ -208,7 +208,7 @@ def test_mono_inertial_metric_scale(rng):
     # reports exactly this quantity (evaluate_ate_scale.py's 'scale'
     # output; raw path-length ratios are biased upward by per-frame
     # jitter and are not a scale instrument)
-    from ms_slam_tpu.utils.evaluate import horn_align
+    from ms_slam.utils.evaluate import horn_align
     _, _, s_al, _ = horn_align(est_xyz.T, gt_xyz.T, True)
     assert abs(s_al - 1.0) < 0.2, s_al
     half = len(rows) // 2

@@ -4,7 +4,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ms_slam_tpu.ops import cameras, imu, inertial_opt, lie
+from ms_slam.ops import cameras, imu, inertial_opt, lie
 
 from test_imu import simulate, G
 

@@ -3,7 +3,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ms_slam_tpu.ops import lie
+from ms_slam.ops import lie
 
 
 

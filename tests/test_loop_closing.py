@@ -4,8 +4,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from ms_slam_tpu.models import vocab
-from ms_slam_tpu.ops import cameras, lie, sim3
+from ms_slam.models import vocab
+from ms_slam.ops import cameras, lie, sim3
 
 
 class TestVocab:
@@ -170,8 +170,8 @@ class TestSim3GuidedVerification:
     + iterative OptimizeSim3 (ref src/Optimizer.cc:1986) closes the loop."""
 
     def _build(self, rng):
-        from ms_slam_tpu.models import map_state as M
-        from ms_slam_tpu.pipeline.frontend import Calib
+        from ms_slam.models import map_state as M
+        from ms_slam.pipeline.frontend import Calib
         from scipy.spatial.transform import Rotation
 
         FXL, W, H = 260.0, 320, 240
@@ -232,8 +232,8 @@ class TestSim3GuidedVerification:
         return ms, calib, R_b, t_b, vis
 
     def test_guided_path_verifies_where_mutual_fails(self, rng):
-        from ms_slam_tpu.ops import matching
-        from ms_slam_tpu.pipeline.loop_closing import (_verify_pair_impl,
+        from ms_slam.ops import matching
+        from ms_slam.pipeline.loop_closing import (_verify_pair_impl,
                                                        MIN_RANSAC_INLIERS)
 
         ms, calib, R_b, t_b, vis = self._build(rng)
@@ -267,12 +267,12 @@ class TestSim3GuidedVerification:
 def test_loop_closure_in_box_world(rng):
     """Full-system loop: orbit inside a textured room; the revisit at the
     end must be detected and corrected."""
-    from ms_slam_tpu.models.map_state import MapConfig
-    from ms_slam_tpu.ops.orb import OrbConfig
-    from ms_slam_tpu.pipeline.frontend import Calib
-    from ms_slam_tpu.pipeline.system import System, SystemConfig
-    from ms_slam_tpu.utils import synth
-    from ms_slam_tpu.utils.evaluate import ate_rmse
+    from ms_slam.models.map_state import MapConfig
+    from ms_slam.ops.orb import OrbConfig
+    from ms_slam.pipeline.frontend import Calib
+    from ms_slam.pipeline.system import System, SystemConfig
+    from ms_slam.utils import synth
+    from ms_slam.utils.evaluate import ate_rmse
 
     H, W, FX, BL = 240, 320, 260.0, 0.15
     K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
@@ -354,11 +354,11 @@ def test_loop_confirms_from_single_retrieval(rng):
     Sim3 against the same matched keyframe, and the loop must still
     confirm. Under the round-4 design (a fresh database query per
     keyframe) this scenario could never close."""
-    from ms_slam_tpu.models.map_state import MapConfig
-    from ms_slam_tpu.ops.orb import OrbConfig
-    from ms_slam_tpu.pipeline.frontend import Calib
-    from ms_slam_tpu.pipeline.system import System, SystemConfig
-    from ms_slam_tpu.utils import synth
+    from ms_slam.models.map_state import MapConfig
+    from ms_slam.ops.orb import OrbConfig
+    from ms_slam.pipeline.frontend import Calib
+    from ms_slam.pipeline.system import System, SystemConfig
+    from ms_slam.utils import synth
 
     H, W, FX, BL = 240, 320, 260.0, 0.15
     K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
@@ -411,11 +411,11 @@ def test_inertial_yaw_only_loop_gate():
     """Ref LoopClosing.cc:243-256: with gravity observed (VIBA2 done) a
     loop correction whose world rotation has pitch/roll beyond 0.008 rad
     is rejected; yaw-only corrections under 0.349 rad pass."""
-    from ms_slam_tpu.models.map_state import MapConfig
-    from ms_slam_tpu.ops.orb import OrbConfig
-    from ms_slam_tpu.pipeline.frontend import Calib
-    from ms_slam_tpu.pipeline.system import System, SystemConfig
-    from ms_slam_tpu.ops import lie
+    from ms_slam.models.map_state import MapConfig
+    from ms_slam.ops.orb import OrbConfig
+    from ms_slam.pipeline.frontend import Calib
+    from ms_slam.pipeline.system import System, SystemConfig
+    from ms_slam.ops import lie
     import jax.numpy as jnp
 
     H, W, FX, BL = 240, 320, 260.0, 0.15

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ms_slam_tpu.models import map_state as M
+from ms_slam.models import map_state as M
 
 CFG = M.MapConfig(max_kf=8, max_mp=64, n_feat=16)
 

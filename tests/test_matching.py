@@ -2,7 +2,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ms_slam_tpu.ops import cameras, lie, matching
+from ms_slam.ops import cameras, lie, matching
 
 PIN = cameras.pad_params([300.0, 300.0, 160.0, 120.0])
 

@@ -2,12 +2,12 @@
 import numpy as np
 import pytest
 
-from ms_slam_tpu.models.map_state import MapConfig
-from ms_slam_tpu.ops.orb import OrbConfig
-from ms_slam_tpu.pipeline.frontend import Calib
-from ms_slam_tpu.pipeline.system import System, SystemConfig
-from ms_slam_tpu.utils import synth
-from ms_slam_tpu.utils.evaluate import ate_rmse
+from ms_slam.models.map_state import MapConfig
+from ms_slam.ops.orb import OrbConfig
+from ms_slam.pipeline.frontend import Calib
+from ms_slam.pipeline.system import System, SystemConfig
+from ms_slam.utils import synth
+from ms_slam.utils.evaluate import ate_rmse
 
 H, W, FX, BL = 240, 320, 260.0, 0.15
 K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])

@@ -5,7 +5,7 @@ import tempfile
 import numpy as np
 import pytest
 
-from ms_slam_tpu.utils import native
+from ms_slam.utils import native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native runtime not built")
@@ -80,7 +80,7 @@ def test_dataset_frames_use_prefetch(rng, tmp_path, monkeypatch):
         cv2.imwrite(str(seq / "image_1" / f"{i:06d}.png"), img)
     (seq / "times.txt").write_text("\n".join(str(0.1 * i) for i in range(n)))
 
-    from ms_slam_tpu.utils import datasets
+    from ms_slam.utils import datasets
 
     used = {"pipes": 0}
     real_pipe = native.PrefetchPipeline
@@ -105,3 +105,26 @@ def test_dataset_frames_use_prefetch(rng, tmp_path, monkeypatch):
     pairs = list(datasets.with_lookahead(iter(ref)))
     assert pairs[-1][1] is None
     np.testing.assert_array_equal(pairs[0][1][0], ref[1].left)
+
+
+def test_pipeline_stress_in_order(rng):
+    """Workers outnumber ring slots, so frames that map to one slot race
+    for it; the in-order consumer must never stall. Each run is bounded by
+    a join timeout."""
+    import threading
+    with tempfile.TemporaryDirectory() as d:
+        paths = write_pngs(d, 24, h=12, w=16, rng=rng)
+        for depth, workers in [(2, 6), (3, 8), (4, 3)]:
+            for _ in range(10):
+                got = []
+                pipe = native.PrefetchPipeline(paths, paths, width=16,
+                                               height=12, depth=depth,
+                                               n_workers=workers)
+                t = threading.Thread(
+                    target=lambda: got.extend(l for l, _ in pipe),
+                    daemon=True)
+                t.start()
+                t.join(timeout=30)
+                assert not t.is_alive(), (depth, workers, len(got))
+                pipe.close()
+                assert len(got) == 24

@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ms_slam_tpu.ops import hamming, orb
+from ms_slam.ops import hamming, orb
 
 CFG = orb.OrbConfig(n_features=512, n_levels=4)
 
@@ -106,52 +106,3 @@ def test_fast_score_on_flat_is_zero():
     s = orb.fast_score(img, 7.0)
     np.testing.assert_array_equal(np.asarray(s), 0.0)
 
-
-def test_tpu_numerics_parity(rng, monkeypatch):
-    """VERDICT r4 #7 / ADVICE r3 #4: the TPU extraction path (bf16 canvas
-    + Pallas patch extractor, gated on jax.default_backend() == 'tpu') was
-    previously exercised by zero tests — the suite pins CPU/f32. Force it
-    on CPU (MSSLAM_FORCE_TPU_NUMERICS=1 runs the Mosaic kernel
-    interpreted) and assert keypoints/descriptors agree with the f32
-    path within tolerance."""
-    img = jnp.asarray(mondrian(rng))
-    f_cpu, _ = orb.extract_canvas_multi(img[None], CFG)
-    monkeypatch.setenv("MSSLAM_FORCE_TPU_NUMERICS", "1")
-    f_tpu, _ = orb.extract_canvas_multi(img[None], CFG)
-
-    v_cpu = np.asarray(f_cpu.valid[0])
-    v_tpu = np.asarray(f_tpu.valid[0])
-    n_cpu, n_tpu = v_cpu.sum(), v_tpu.sum()
-    # detection counts agree closely (bf16 rounding can flip marginal
-    # FAST threshold decisions on a handful of cells)
-    assert abs(int(n_cpu) - int(n_tpu)) <= 0.02 * max(n_cpu, n_tpu) + 2, (
-        n_cpu, n_tpu)
-
-    # match keypoints by position: >= 95% of CPU keypoints must have a
-    # TPU keypoint at the same (sub-)pixel on the same octave
-    xy_cpu = np.asarray(f_cpu.xy[0])[v_cpu]
-    oc_cpu = np.asarray(f_cpu.octave[0])[v_cpu]
-    xy_tpu = np.asarray(f_tpu.xy[0])[v_tpu]
-    oc_tpu = np.asarray(f_tpu.octave[0])[v_tpu]
-    d_cpu = np.asarray(f_cpu.desc[0])[v_cpu]
-    d_tpu = np.asarray(f_tpu.desc[0])[v_tpu]
-    an_cpu = np.asarray(f_cpu.angle[0])[v_cpu]
-    an_tpu = np.asarray(f_tpu.angle[0])[v_tpu]
-
-    dist = np.linalg.norm(xy_cpu[:, None, :] - xy_tpu[None, :, :], axis=-1)
-    dist = np.where(oc_cpu[:, None] == oc_tpu[None, :], dist, 1e9)
-    j = np.argmin(dist, axis=1)
-    hit = dist[np.arange(len(j)), j] < 1.0
-    assert hit.mean() >= 0.95, hit.mean()
-
-    # descriptors of matched keypoints: low Hamming distance, aligned
-    # orientation (bf16 intensity-centroid can wobble a few degrees on
-    # near-isotropic patches, which flips a few BRIEF comparisons)
-    ham = np.asarray(hamming.hamming_matrix(
-        jnp.asarray(d_cpu[hit]), jnp.asarray(d_tpu[j[hit]])))
-    ham_diag = ham[np.arange(hit.sum()), np.arange(hit.sum())]
-    assert np.median(ham_diag) <= 8, np.median(ham_diag)
-    assert (ham_diag <= 32).mean() >= 0.9, (ham_diag > 32).mean()
-    dang = np.abs(((an_cpu[hit] - an_tpu[j[hit]]) + np.pi)
-                  % (2 * np.pi) - np.pi)
-    assert np.median(dang) < 0.05, np.median(dang)

@@ -3,8 +3,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ms_slam_tpu.ops import cameras, pnp
-from ms_slam_tpu.ops.lie import se3_apply
+from ms_slam.ops import cameras, pnp
+from ms_slam.ops.lie import se3_apply
 from scipy.spatial.transform import Rotation
 
 PIN = cameras.pad_params([300.0, 300.0, 160.0, 120.0])
@@ -56,11 +56,11 @@ def test_relocalization_far_from_keyframes(rng):
     stored keyframe pose — impossible with prior-seeded refinement, needs
     the prior-free PnP (ref MLPnPsolver use, src/Tracking.cc:3688-3713).
     Also exercises reloc WITHOUT loop closing (sparsify-only database)."""
-    from ms_slam_tpu.models.map_state import MapConfig
-    from ms_slam_tpu.ops.orb import OrbConfig
-    from ms_slam_tpu.pipeline.frontend import Calib
-    from ms_slam_tpu.pipeline.system import System, SystemConfig
-    from ms_slam_tpu.utils import synth
+    from ms_slam.models.map_state import MapConfig
+    from ms_slam.ops.orb import OrbConfig
+    from ms_slam.pipeline.frontend import Calib
+    from ms_slam.pipeline.system import System, SystemConfig
+    from ms_slam.utils import synth
 
     H, W, FX, BL = 240, 320, 260.0, 0.15
     K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])

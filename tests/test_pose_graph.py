@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ms_slam_tpu.ops import lie, pose_graph
+from ms_slam.ops import lie, pose_graph
 
 
 def circle_poses(n, radius=5.0):

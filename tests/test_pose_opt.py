@@ -1,7 +1,7 @@
 import jax.numpy as jnp
 import numpy as np
 
-from ms_slam_tpu.ops import cameras, lie, pose_opt
+from ms_slam.ops import cameras, lie, pose_opt
 
 PIN = cameras.pad_params([500.0, 500.0, 320.0, 240.0])
 BF = 50.0  # baseline*fx

@@ -10,7 +10,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from ms_slam_tpu.ops import select
+from ms_slam.ops import select
 
 
 def random_instance(rng, K=4, N=24, P=40, n_cells=8, req=6):

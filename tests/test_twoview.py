@@ -9,7 +9,7 @@ import jax.numpy as jnp
 import pytest
 from scipy.spatial.transform import Rotation
 
-from ms_slam_tpu.ops import twoview
+from ms_slam.ops import twoview
 
 FX, W, H = 260.0, 320, 240
 PARAMS = jnp.asarray([FX, FX, W / 2, H / 2])
@@ -114,12 +114,12 @@ def test_homography_decomposition_exact():
 def test_mono_init_on_planar_world(rng):
     """End-to-end: monocular initialization on a pure fronto-planar world
     (wall only, no floor) — the regime the homography model exists for."""
-    from ms_slam_tpu.models.map_state import MapConfig
-    from ms_slam_tpu.ops.orb import OrbConfig
-    from ms_slam_tpu.pipeline.frontend import Calib
-    from ms_slam_tpu.pipeline.system import System, SystemConfig
-    from ms_slam_tpu.utils import synth
-    from ms_slam_tpu.utils.evaluate import ate_rmse
+    from ms_slam.models.map_state import MapConfig
+    from ms_slam.ops.orb import OrbConfig
+    from ms_slam.pipeline.frontend import Calib
+    from ms_slam.pipeline.system import System, SystemConfig
+    from ms_slam.utils import synth
+    from ms_slam.utils.evaluate import ate_rmse
 
     K = np.array([[FX, 0, W / 2], [0, FX, H / 2], [0, 0, 1.0]])
     calib = Calib(model=0, params=(FX, FX, W / 2, H / 2), bf=0.0,

@@ -3,13 +3,13 @@ import tempfile
 
 import numpy as np
 
-from ms_slam_tpu.utils.viewer import MapSnapshot
+from ms_slam.utils.viewer import MapSnapshot
 
 
 class _FakeSlam:
     def __init__(self, rng):
         import jax.numpy as jnp
-        from ms_slam_tpu.models import map_state as M
+        from ms_slam.models import map_state as M
         cfg = M.MapConfig(max_kf=8, max_mp=64, n_feat=16)
         ms = M.empty_map(cfg)
         ms = ms._replace(
@@ -44,7 +44,7 @@ def test_snapshot_ply_and_plot(rng):
 
 def test_frame_drawer(tmp_path, rng):
     """FrameDrawer analog: overlay PNG is written with the right size."""
-    from ms_slam_tpu.utils.viewer import draw_frame
+    from ms_slam.utils.viewer import draw_frame
     img = rng.integers(0, 255, (120, 160), dtype=np.uint8)
     n = 64
     xy = rng.uniform(0, [160, 120], (n, 2)).astype(np.float32)
